@@ -1,7 +1,7 @@
-"""Benchmark CLI (C16) — thin checkout wrapper over ``tpu_spmv.cli``.
+"""Benchmark CLI (C16) — thin checkout wrapper over ``jax_spmv.cli``.
 
-The demo itself lives in the installable package (``tpu_spmv/cli.py``,
-console script ``tpu-spmv-benchmark``); this file keeps the documented
+The demo itself lives in the installable package (``jax_spmv/cli.py``,
+console script ``jax-spmv-benchmark``); this file keeps the documented
 ``python benchmarks/main.py`` invocation working from a source checkout.
 """
 
@@ -12,7 +12,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tpu_spmv.cli import main  # noqa: E402
+from jax_spmv.cli import main  # noqa: E402
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,37 +1,39 @@
-"""Test configuration.
+"""Test configuration: the suite's one platform decision.
 
-All property tests run on XLA-CPU (the free "fake backend" — the TPU-build
-equivalent of the reference's requirement of a real GPU for every .cu test),
-with 8 forced host devices so the multi-chip layer is tested single-process.
-Set ``TPU_SPMV_TEST_TPU=1`` to run the same suite against real TPU hardware.
+The suite runs on XLA's CPU backend with 8 virtual devices, so the
+multi-device layer is tested in one process.  ``JAX_PLATFORMS`` naming
+another platform (``JAX_PLATFORMS=cuda``) lets the suite run on a GPU
+instead; tests marked ``gpu`` (the CUDA kernel and cuSPARSE checks, also
+phases of ``chip_smoke.py``) skip unless the default device is a GPU.
+Run them in one process — a JAX process reserves most of the card's
+memory — e.g. ``JAX_PLATFORMS=cuda python -m pytest -m gpu -p no:xdist
+tests/``.
 """
 
 import os
 
-import jax  # noqa: E402
+import jax
+import pytest
 
-if os.environ.get("TPU_SPMV_TEST_TPU", "0") != "1":
-    # config.update (not env vars) — TPU PJRT plugins can override
-    # JAX_PLATFORMS, and XLA_FLAGS host-device forcing is ignored by
-    # modern jaxlib.  Must run before the backend initializes.
+if os.environ.get("JAX_PLATFORMS", "cpu") == "cpu":
     jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_num_cpu_devices", 8)
-    except Exception:
-        pass
-import pytest  # noqa: E402
+    jax.config.update("jax_num_cpu_devices", 8)
 
-from tpu_spmv.utils.testing import RandomGenerator  # noqa: E402
+from jax_spmv.utils.testing import RandomGenerator  # noqa: E402
 
-# Property-test iteration counts (reference: 100 for format/kernel
-# properties, 50 for benchmark/pagerank; test_csr.cpp:10-14).  On real
-# TPU hardware the reference intensity (100) is the gate; the
-# interpret-mode CI slice defaults to 25 because interpret-mode Pallas
-# recompiles per shape bucket.  Both remain env-overridable.
-PROP_ITERS = int(os.environ.get("TPU_SPMV_PROP_ITERS", "100"))
-_DEVICE_DEFAULT = "100" if os.environ.get("TPU_SPMV_TEST_TPU") == "1" else "25"
-DEVICE_PROP_ITERS = int(os.environ.get("TPU_SPMV_DEVICE_PROP_ITERS",
-                                       _DEVICE_DEFAULT))
+# Property-test iteration counts: the reference's 100 for format/kernel
+# properties (test_csr.cpp:10-14); device-kernel properties run 25, since
+# each new shape bucket compiles a program.
+PROP_ITERS = 100
+DEVICE_PROP_ITERS = 25
+
+
+@pytest.fixture(autouse=True)
+def _gpu_only(request):
+    """Skip tests marked ``gpu`` unless JAX's default device is a GPU."""
+    if request.node.get_closest_marker("gpu") is not None \
+            and jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a CUDA GPU (runs on the card, see conftest)")
 
 
 @pytest.fixture

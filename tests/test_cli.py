@@ -9,9 +9,9 @@ import json
 
 import numpy as np
 
-from tpu_spmv.cli import main
-from tpu_spmv.csr import csr_from_dense
-from tpu_spmv.io import save_matrix_market
+from jax_spmv.cli import main
+from jax_spmv.csr import csr_from_dense
+from jax_spmv.io import save_matrix_market
 
 
 def test_cli_generated_sweep(capsys):

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from tpu_spmv import (
+from jax_spmv import (
     DeviceBuffer,
     InvalidArgumentError,
     SpMVError,

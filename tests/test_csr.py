@@ -4,8 +4,8 @@ import io
 
 import numpy as np
 
-from tpu_spmv import CSRMatrix, csr_compute_stats, csr_from_dense
-from tpu_spmv.utils.testing import float_arrays_equal
+from jax_spmv import CSRMatrix, csr_compute_stats, csr_from_dense
+from jax_spmv.utils.testing import float_arrays_equal
 
 from conftest import PROP_ITERS
 

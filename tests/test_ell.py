@@ -4,7 +4,7 @@ import io
 
 import numpy as np
 
-from tpu_spmv import ELLMatrix, csr_from_dense, ell_from_csr, ell_from_dense, ell_index
+from jax_spmv import ELLMatrix, csr_from_dense, ell_from_csr, ell_from_dense, ell_index
 
 from conftest import PROP_ITERS
 

@@ -1,243 +1,92 @@
-"""Structural fuzz of the window-ELL packer (quick CI slice of the larger
-sweep run during development: 100 adversarial cases, 0 failures)."""
+"""Differential fuzz of the dispatch paths: adversarial structures through
+the public dispatch, the flat CSR path, the ELL kernel and the CUDA
+kernel's NumPy model, each against the oracle."""
 
 import numpy as np
+import pytest
 
-from tpu_spmv.csr import CSRMatrix
-from tpu_spmv.kernels.window_ell import (WindowEllOverflow, WindowEllPlan,
-                                         spmv_window_ell)
-from tpu_spmv.utils.testing import spmv_matches
+from jax_spmv import KernelType, SpMVConfig, spmv_csr, spmv_ell
+from jax_spmv.csr import CSRMatrix
+from jax_spmv.ell import ELLMatrix
+from jax_spmv.kernels import csr_vector
+from jax_spmv.spmv import CSR_PATHS
+from jax_spmv.utils.testing import spmv_matches
+
+KINDS = ["uniform_block", "hub_row", "hub_column", "diagonal_band",
+         "row_chunk"]
 
 
 def _matrix(rng, kind, rows, cols):
     m = np.zeros((rows, cols), np.float32)
-    if kind == 0:      # uniform random block
+    if kind == "uniform_block":
         rr, cc = min(rows, 200), min(cols, 200)
         m[:rr, :cc] = (rng.random((rr, cc)) < 0.1) * rng.uniform(-5, 5)
-    elif kind == 1:    # dense hub row
+    elif kind == "hub_row":
         m[rng.integers(0, rows), :] = rng.uniform(-1, 1, cols)
-    elif kind == 2:    # dense hub column
+    elif kind == "hub_column":
         m[:, rng.integers(0, cols)] = rng.uniform(-1, 1, rows)
-    elif kind == 3:    # diagonal band
+    elif kind == "diagonal_band":
         for i in range(rows):
             j = int(i * cols / max(rows, 1))
             for dj in (-1, 0, 1):
                 if 0 <= j + dj < cols:
                     m[i, j + dj] = 1.0 + i * 0.001
-    else:              # concentrated chunk (single cell stack)
+    else:              # one row holding a contiguous chunk
         c0 = int(rng.integers(0, max(cols - 100, 1)))
         m[rng.integers(0, rows), c0:c0 + min(100, cols - c0)] = 2.0
     return CSRMatrix.from_dense(m)
 
 
-def test_packer_fuzz(rng):
-    r = rng.rng
-    tested = 0
-    for trial in range(40):
-        kind = int(r.integers(0, 5))
-        # ~half the trials cross superblock (rows > 2048) and window
-        # (cols > 1024) boundaries — the configs round 1 under-covered
-        if trial % 2 == 0:
-            rows = int(r.integers(2049, 6000))
-            cols = int(r.integers(1025, 5000))
-        else:
-            rows = int(r.integers(1, 1200))
-            cols = int(r.integers(1, 2500))
-        csr = _matrix(r, kind, rows, cols)
-        split = [None, 32, 128][int(r.integers(0, 3))]
-        # fuzz the round-3/4 levers too: leveling composes with every
-        # other knob; pattern runs against the unit-valued oracle; the
-        # scatter-run length (t_base) pairs layout and kernel fold
-        perm = bool(r.integers(0, 2))
-        pattern = bool(r.integers(0, 4) == 0)
-        t_base = [2, 4, 8][int(r.integers(0, 3))]
-        try:
-            plan = WindowEllPlan.build(
-                csr, split_rows=split,
-                spill_rounds=int(r.integers(1, 4)),
-                cap_margin=float(r.uniform(0.1, 0.6)),
-                sup=[None, 1024, 4096][int(r.integers(0, 3))],
-                permute_rows=perm, pattern=pattern, t_base=t_base)
-        except WindowEllOverflow:
-            continue
-        assert plan.tb == t_base
-        tested += 1
-        oracle = csr if not pattern else CSRMatrix(
-            csr.num_rows, csr.num_cols,
-            np.ones(csr.nnz, np.float32), csr.col_indices, csr.row_ptrs)
-        x = r.uniform(-3, 3, cols).astype(np.float32)
-        y = np.asarray(spmv_window_ell(plan, x))
-        assert spmv_matches(y, oracle, x, rel_tol=1e-5), \
-            (trial, kind, rows, cols, split, perm, pattern)
-    assert tested >= 20
-
-
-def test_packer_fuzz_tpu_step_width(rng):
-    """The production TPU step width (step_groups=128) under interpret
-    mode, on shapes crossing the superblock/window/block boundaries —
-    round 1 exercised this config only through bench.py (VERDICT
-    'Reference-parity test intensity')."""
+@pytest.mark.parametrize("kind", KINDS)
+def test_dispatch_fuzz(rng, kind):
+    """Random shapes (half of them past a 1024-element padding bucket)
+    and random kernel types; every CSR path agrees with the oracle."""
     r = rng.rng
     for trial in range(6):
-        rows = int(r.integers(2500, 9000))
-        cols = int(r.integers(1100, 4200))
-        kind = int(r.integers(0, 5))
-        csr = _matrix(r, kind, rows, cols)
-        try:
-            plan = WindowEllPlan.build(csr, split_rows=128,
-                                       step_groups=128)
-        except WindowEllOverflow:
-            continue
-        x = r.uniform(-3, 3, cols).astype(np.float32)
-        y = np.asarray(spmv_window_ell(plan, x))
-        assert spmv_matches(y, csr, x, rel_tol=1e-5), (trial, rows, cols)
-
-
-def test_packer_fuzz_spill_beta_and_balancer(rng, monkeypatch):
-    """Order-statistic spill caps (spill_beta) and the extras slot
-    balancer windows/scoring (TPU_SPMV_BALANCE_WINDOW / _LAYER) are
-    data-movement-only planner levers — every (beta, window, layer
-    mode) combination must reproduce the oracle, including cap=0
-    buckets that spill their whole content."""
-    r = rng.rng
-    tested = 0
-    for trial in range(18):
-        kind = int(r.integers(0, 5))
-        rows = int(r.integers(1500, 6000))
-        cols = int(r.integers(1025, 4200))
-        csr = _matrix(r, kind, rows, cols)
-        beta = [1.5, 3.0, 6.0][trial % 3]
-        win = [0, 1, 2, 4][int(r.integers(0, 4))]
-        monkeypatch.setenv("TPU_SPMV_BALANCE_WINDOW", str(win))
-        monkeypatch.setenv("TPU_SPMV_BALANCE_LAYER", str(trial % 3))
-        try:
-            plan = WindowEllPlan.build(
-                csr, split_rows=[None, 128][trial % 2],
-                spill_beta=beta, cap_slack=int(r.integers(0, 2)),
-                spill_rounds=int(r.integers(1, 3)))
-        except WindowEllOverflow:
-            continue
-        tested += 1
-        x = r.uniform(-3, 3, cols).astype(np.float32)
-        y = np.asarray(spmv_window_ell(plan, x))
-        assert spmv_matches(y, csr, x, rel_tol=1e-5), \
-            (trial, kind, rows, cols, beta, win)
-    assert tested >= 10
-
-
-def test_packer_fuzz_combine_levers(rng, monkeypatch):
-    """The combine-split levers — TPU_SPMV_BYPASS_K (rows with K <=
-    bypass_k extras gather their level-1 totals directly instead of
-    through a level-2 row) and TPU_SPMV_L2_BALANCE (slot-balance the
-    level-2 region) — are plan-layout-only: every combination must
-    reproduce the oracle, including hub rows with many extras."""
-    r = rng.rng
-    tested = 0
-    for trial in range(16):
-        kind = [1, 4, 0, 2][trial % 4]   # favor extras-heavy structures
-        rows = int(r.integers(1200, 6000))
-        cols = int(r.integers(1025, 4200))
-        csr = _matrix(r, kind, rows, cols)
-        monkeypatch.setenv("TPU_SPMV_BYPASS_K", str([1, 2, 3, 5][trial % 4]))
-        if trial % 2:
-            monkeypatch.setenv("TPU_SPMV_L2_BALANCE", "1")
+        if trial % 2 == 0:
+            rows, cols = int(r.integers(1025, 2500)), int(r.integers(1025, 2000))
         else:
-            monkeypatch.delenv("TPU_SPMV_L2_BALANCE", raising=False)
-        try:
-            plan = WindowEllPlan.build(
-                csr, split_rows=[None, 32, 128][trial % 3],
-                permute_rows=bool(r.integers(0, 2)))
-        except WindowEllOverflow:
-            continue
-        tested += 1
+            rows, cols = int(r.integers(1, 600)), int(r.integers(1, 900))
+        A = _matrix(r, kind, rows, cols)
         x = r.uniform(-3, 3, cols).astype(np.float32)
-        y = np.asarray(spmv_window_ell(plan, x))
-        assert spmv_matches(y, csr, x, rel_tol=1e-5), \
-            (trial, kind, rows, cols)
-    assert tested >= 10
+        kt = KernelType(int(r.integers(0, 4)))
+        res = spmv_csr(A, x, SpMVConfig(kernel_type=kt))
+        assert res.error_code == 0
+        assert spmv_matches(res.y_host(), A, x, rel_tol=1e-5), \
+            (trial, kind, rows, cols, kt)
+        fn, args = CSR_PATHS["flat"](A, SpMVConfig())
+        assert spmv_matches(np.asarray(fn(*args, x)), A, x,
+                            rel_tol=1e-5), (trial, kind, "flat")
 
 
-def test_packer_fuzz_nonstandard_step_widths(rng):
-    """Step widths that are not multiples of T_SUB=16 (e.g. via
-    SpMVConfig(block_size=24) -> step_groups=12) must be normalized at
-    plan time — the unrolled kernel processes S//T_SUB full sub-tiles
-    and would otherwise silently drop trailing groups (ADVICE r02 high:
-    S=12 scattered only 8 of 12 groups)."""
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_kernel_model_fuzz(rng, kind):
+    """The CUDA kernel's sums (NumPy model) with the width and long-row
+    threshold the wrapper picks, and with random ones."""
     r = rng.rng
-    for S in (3, 5, 12, 20, 24, 40, 72):
-        rows = int(r.integers(1500, 4000))
-        cols = int(r.integers(1025, 3000))
-        csr = _matrix(r, int(r.integers(0, 5)), rows, cols)
-        try:
-            plan = WindowEllPlan.build(csr, split_rows=128, step_groups=S)
-        except WindowEllOverflow:
-            continue
-        assert plan.step_groups in (8, 16) or plan.step_groups % 16 == 0
+    for trial in range(4):
+        rows, cols = int(r.integers(1, 1500)), int(r.integers(1, 1500))
+        A = _matrix(r, kind, rows, cols)
         x = r.uniform(-3, 3, cols).astype(np.float32)
-        y = np.asarray(spmv_window_ell(plan, x))
-        assert spmv_matches(y, csr, x, rel_tol=1e-5), (S, rows, cols)
+        if trial % 2 == 0:
+            tpr = csr_vector.threads_per_row(A.nnz / max(A.num_rows, 1))
+            thr = csr_vector.long_row_threshold(tpr)
+        else:
+            tpr = int(2 ** r.integers(0, 6))
+            thr = int(r.integers(0, 300))
+        block = int(32 * r.integers(1, 33))
+        y = csr_vector.spmv_csr_vector_reference(A, x, tpr, thr, block)
+        assert spmv_matches(y, A, x, rel_tol=1e-5), \
+            (trial, kind, tpr, thr, block)
 
 
-def test_packer_fuzz_banded(rng):
-    """Banded plans (round-3): every (n_bands, sup, beta, slack)
-    combination — including auto band sizing and bands padded to the
-    common height — must reproduce the oracle."""
-    from tpu_spmv.kernels.window_ell import build_banded, spmv_banded
-
+def test_ell_fuzz(rng):
+    """ELL built from every fuzz structure, through spmv_ell."""
     r = rng.rng
-    tested = 0
-    for trial in range(14):
-        kind = int(r.integers(0, 5))
-        rows = int(r.integers(2500, 9000))
-        cols = int(r.integers(1025, 4200))
-        csr = _matrix(r, kind, rows, cols)
-        nb = [None, 2, 3, 5][trial % 4]
-        try:
-            bp = build_banded(
-                csr, sup=1024, n_bands=nb,
-                spill_beta=[None, 2.6, 2.2][trial % 3],
-                cap_slack=int(r.integers(0, 2)))
-        except WindowEllOverflow:
-            continue
-        tested += 1
-        assert sum(bp.band_rows) == csr.num_rows
+    for trial in range(10):
+        rows, cols = int(r.integers(1, 1200)), int(r.integers(1, 800))
+        A = _matrix(r, KINDS[trial % len(KINDS)], rows, cols)
         x = r.uniform(-3, 3, cols).astype(np.float32)
-        y = np.asarray(spmv_banded(bp, x))
-        assert spmv_matches(y, csr, x, rel_tol=1e-5), \
-            (trial, kind, rows, cols, nb)
-    assert tested >= 10
-
-
-def test_packer_fuzz_bf16_values(rng):
-    """bf16 value streams (round 4) compose with split/sup/leveling;
-    the error budget is per-row bf16 value rounding (row-mass metric —
-    a plain relative check explodes on cancellation near zero)."""
-    import jax.numpy as jnp
-
-    r = rng.rng
-    tested = 0
-    for trial in range(12):
-        kind = int(r.integers(0, 5))
-        rows = int(r.integers(256, 4000))
-        cols = int(r.integers(128, 3000))
-        csr = _matrix(r, kind, rows, cols)
-        try:
-            plan = WindowEllPlan.build(
-                csr, split_rows=[None, 128][int(r.integers(0, 2))],
-                sup=[None, 1024][int(r.integers(0, 2))],
-                permute_rows=bool(r.integers(0, 2)),
-                values_dtype=jnp.bfloat16)
-        except WindowEllOverflow:
-            continue
-        tested += 1
-        x = r.uniform(-3, 3, cols).astype(np.float32)
-        y = np.asarray(spmv_window_ell(plan, x))
-        yref = np.zeros(csr.num_rows, np.float32)
-        rl = np.diff(csr.row_ptrs)
-        idx = np.repeat(np.arange(csr.num_rows), rl)
-        np.add.at(yref, idx, csr.values * x[csr.col_indices])
-        mass = np.zeros(csr.num_rows, np.float32)
-        np.add.at(mass, idx, np.abs(csr.values * x[csr.col_indices]))
-        assert np.all(np.abs(y - yref) <= 5e-3 * mass + 1e-4), \
-            (trial, kind, rows, cols)
-    assert tested >= 6
+        res = spmv_ell(ELLMatrix.from_csr(A), x)
+        assert res.error_code == 0
+        assert spmv_matches(res.y_host(), A, x, rel_tol=1e-5), trial

@@ -2,13 +2,11 @@
 
 import numpy as np
 
-from tpu_spmv import KernelType, csr_from_dense, spmv_auto_config
-from tpu_spmv.selector import (
+from jax_spmv import KernelType, csr_from_dense, spmv_auto_config
+from jax_spmv.selector import (
     AVG_NNZ_SCALAR_THRESHOLD,
     SKEWNESS_VECTOR_THRESHOLD,
 )
-from tpu_spmv.spmv import PACKED_MAX_COLS
-from tpu_spmv.csr import CSRMatrix
 
 from conftest import PROP_ITERS
 
@@ -43,8 +41,8 @@ class TestHeuristicBranches:
     """One unit test per branch (test_kernel_selector.cpp:53-118)."""
 
     def test_sparse_rows_pick_scalar(self):
-        # near-empty matrix: plan overhead dominates -> flat scalar path
-        csr = _csr_with_row_lengths([1] + [0] * 63, 64)
+        # short rows (avg < 4): one thread per row -> scalar CSR
+        csr = _csr_with_row_lengths([3] * 64, 64)
         assert csr.compute_stats().avg_nnz_per_row < AVG_NNZ_SCALAR_THRESHOLD
         assert spmv_auto_config(csr).kernel_type == KernelType.SCALAR_CSR
 
@@ -63,23 +61,18 @@ class TestHeuristicBranches:
         assert stats.avg_nnz_per_row >= AVG_NNZ_SCALAR_THRESHOLD
         assert spmv_auto_config(csr).kernel_type == KernelType.MERGE_PATH
 
-    def test_vmem_x_rule(self):
-        """The texture-analog rule (test_kernel_selector.cpp:120-137):
-        VMEM residency stays enabled at ANY width (round 4: column
-        strips serve x beyond the packed cap on the packed kernels —
-        kernels/strips.py); the flat path remains only for near-empty
-        structure."""
-        small = _csr_with_row_lengths([4] * 8, 100)
-        assert spmv_auto_config(small).use_vmem_x
-        # huge-cols matrix built directly (dense would not fit in memory)
-        rows = 8
-        cols = PACKED_MAX_COLS + 1
-        row_ptrs = np.arange(rows + 1, dtype=np.int32) * 4
-        big = CSRMatrix(rows, cols,
-                        np.ones(rows * 4, np.float32),
-                        np.tile(np.arange(4, dtype=np.int32), rows),
-                        row_ptrs)
-        cfg = spmv_auto_config(big)
-        assert cfg.use_vmem_x
-        # uniform 4-nnz rows: skew 1 → the lane-per-row packed kernel
-        assert cfg.kernel_type == KernelType.VECTOR_CSR
+    def test_reference_thresholds(self):
+        """The reference's GPU constants (spmv_cpu.cpp:41-46)."""
+        assert AVG_NNZ_SCALAR_THRESHOLD == 4.0
+        assert SKEWNESS_VECTOR_THRESHOLD == 10.0
+
+    def test_avg_boundary_is_exclusive(self):
+        """avg == 4 is not 'sparse': the scalar branch needs avg < 4."""
+        csr = _csr_with_row_lengths([4] * 32, 64)
+        assert spmv_auto_config(csr).kernel_type == KernelType.VECTOR_CSR
+
+    def test_skew_boundary_is_exclusive(self):
+        """skew == 10 goes to merge-path: the vector branch needs < 10."""
+        csr = _csr_with_row_lengths([4] * 31 + [50], 64)
+        assert csr.compute_stats().skewness == 10.0
+        assert spmv_auto_config(csr).kernel_type == KernelType.MERGE_PATH

@@ -1,9 +1,12 @@
 """PageRank tests (C15) — mirrors ``tests/test_pagerank.cu``."""
 
 import numpy as np
+import pytest
 
-from tpu_spmv import (
+from jax_spmv import (
+    KernelType,
     PageRankConfig,
+    SpMVError,
     csr_from_dense,
     pagerank,
     pagerank_top_k,
@@ -103,14 +106,14 @@ class TestSymmetry:
 
 
 class TestResume:
-    """Checkpoint/resume — TPU-build extension (SURVEY §5: the reference's
+    """Checkpoint/resume — an extension (SURVEY §5: the reference's
     PageRank cannot resume)."""
 
     def test_save_load_resume(self, rng, tmp_path):
         import numpy as np
-        from tpu_spmv import (PageRankConfig, pagerank, pagerank_load_state,
+        from jax_spmv import (PageRankConfig, pagerank, pagerank_load_state,
                               pagerank_save_state)
-        from tpu_spmv.csr import csr_from_dense
+        from jax_spmv.csr import csr_from_dense
 
         n = 40
         adj = (rng.rng.random((n, n)) < 0.2).astype(np.float32)
@@ -136,77 +139,49 @@ class TestResume:
                                    rtol=1e-4, atol=1e-7)
 
 
-def _column_normalized(rng_np, n, m):
-    """A column-normalized transition matrix (values 1/outdeg[col])."""
-    import numpy as np
-
-    from tpu_spmv.csr import CSRMatrix
-
-    rows = rng_np.integers(0, n, m)
-    cols = rng_np.integers(0, n, m)
-    keep = rows != cols
-    rows, cols = rows[keep], cols[keep]
-    outdeg = np.bincount(cols, minlength=n)
-    vals = (1.0 / outdeg[cols]).astype(np.float32)
-    order = np.lexsort((cols, rows))
-    ptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(rows, minlength=n), out=ptr[1:])
-    return CSRMatrix(n, n, vals[order], cols[order].astype(np.int32),
-                     ptr.astype(np.int32))
+def _host_pagerank(dense, cfg):
+    """NumPy power iteration with the reference semantics
+    (pagerank.cu:50-153)."""
+    n = dense.shape[0]
+    dangling = (dense.sum(axis=0) == 0.0).astype(np.float32)
+    r = np.full(n, 1.0 / n, np.float32)
+    it, resid = 0, np.inf
+    while it < cfg.max_iterations and resid >= cfg.tolerance:
+        r_new = (cfg.damping_factor * (dense @ r)
+                 + cfg.damping_factor * float(dangling @ r) / n
+                 + (1 - cfg.damping_factor) / n).astype(np.float32)
+        resid = float(np.linalg.norm(r_new - r))
+        r, it = r_new, it + 1
+    return r / r.sum(), it
 
 
-def test_column_scale_factor_detection():
-    import numpy as np
-
-    from tpu_spmv.pagerank import column_scale_factor
-
-    rng_np = np.random.default_rng(9)
-    A = _column_normalized(rng_np, 500, 4000)
-    s = column_scale_factor(A)
-    assert s is not None
-    np.testing.assert_array_equal(s[A.col_indices], A.values)
-    # breaking one value breaks the factorization
-    A.values[0] *= 2.0
-    if np.count_nonzero(A.col_indices == A.col_indices[0]) > 1:
-        assert column_scale_factor(A) is None
+@pytest.mark.parametrize("kernel_type", list(KernelType))
+def test_pagerank_each_kernel_type(rng, kernel_type):
+    """Every kernel type drives the iteration to the host result, with
+    the same iteration count."""
+    adj = column_normalized_adjacency(rng, 70, density=0.1)
+    cfg = PageRankConfig(kernel_type=kernel_type)
+    res = pagerank(adj, cfg)
+    ref, ref_it = _host_pagerank(adj.to_dense(), cfg)
+    assert res.error_code == 0 and res.converged
+    assert res.iterations == ref_it
+    np.testing.assert_allclose(res.ranks_host(), ref, rtol=1e-4, atol=1e-7)
 
 
-def test_pagerank_pattern_path_matches_generic():
-    """The pattern fast path (no vals stream, x pre-scaled) converges to
-    the same ranks as the generic kernel path."""
-    import numpy as np
-
-    from tpu_spmv import pagerank
-    from tpu_spmv.pagerank import KernelType, PageRankConfig
-
-    rng_np = np.random.default_rng(3)
-    A = _column_normalized(rng_np, 2000, 16000)
-    r_pat = pagerank(A)
-    r_gen = pagerank(A, PageRankConfig(kernel_type=KernelType.SCALAR_CSR))
-    assert r_pat.converged and r_gen.converged
-    assert r_pat.iterations == r_gen.iterations
-    assert np.abs(r_pat.ranks_host() - r_gen.ranks_host()).max() < 1e-6
+def test_dangling_mass_is_redistributed(rng):
+    """Columns with no out-links (dangling nodes) spread their rank evenly;
+    the ranks still sum to 1 and match the host loop."""
+    adj = column_normalized_adjacency(rng, 50, density=0.1).to_dense()
+    adj[:, :10] = 0.0                      # ten dangling nodes
+    csr = csr_from_dense(adj)
+    cfg = PageRankConfig()
+    res = pagerank(csr, cfg)
+    ref, _ = _host_pagerank(adj, cfg)
+    assert abs(res.ranks_host().sum() - 1.0) < 1e-5
+    np.testing.assert_allclose(res.ranks_host(), ref, rtol=1e-4, atol=1e-7)
 
 
-def test_pagerank_non_factorable_matrix_still_works(rng):
-    """Row-scaled (not column-scaled) values defeat the pattern
-    detection; pagerank falls back to the generic dispatch."""
-    import numpy as np
-
-    from tpu_spmv import pagerank
-    from tpu_spmv.pagerank import column_scale_factor
-
-    n = 400
-    dense = np.abs(rng.dense_matrix(n, n, 0.02))
-    np.fill_diagonal(dense, 0.0)
-    # row-normalize: values vary within a column
-    rs = dense.sum(axis=1, keepdims=True)
-    dense = np.divide(dense, rs, out=np.zeros_like(dense), where=rs > 0)
-    from tpu_spmv import csr_from_dense
-
-    A = csr_from_dense(dense.astype(np.float32))
-    if A.nnz:
-        assert column_scale_factor(A) is None or np.unique(
-            A.col_indices).size == A.nnz
-    res = pagerank(A)
-    assert res.error_code == 0 and res.ranks is not None
+def test_non_square_rejected():
+    res = pagerank(csr_from_dense(np.ones((3, 4), np.float32)))
+    assert res.error_code == int(SpMVError.INVALID_DIMENSION)
+    assert res.ranks is None

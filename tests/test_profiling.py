@@ -2,7 +2,9 @@
 
 import jax.numpy as jnp
 
-from tpu_spmv import profiling
+import numpy as np
+
+from jax_spmv import profiling
 
 
 def test_cost_analysis_reports_flops():
@@ -30,16 +32,11 @@ def test_annotate_and_trace_contexts(tmp_path):
         jnp.ones((8,)).sum().block_until_ready()
 
 
-def test_roofline_report_shapes(rng):
-    """roofline_report works across plan kinds and reports consistent
-    byte accounting (pattern plans stream strictly less)."""
-    from tpu_spmv.kernels.window_ell import WindowEllPlan
-    from tpu_spmv.profiling import roofline_report
+def test_cost_analysis_of_spmv_path(rng):
+    """The static cost model reads the flat SpMV path's program."""
+    from jax_spmv.spmv import CSR_PATHS, SpMVConfig
 
-    csr = rng.power_law_csr(2000, 1000, avg_nnz=10.0, alpha=1.6)
-    nat = roofline_report(WindowEllPlan.build(csr, split_rows=128), 1e-4)
-    pat = roofline_report(
-        WindowEllPlan.build(csr, split_rows=128, pattern=True), 1e-4)
-    assert nat["slots"] == pat["slots"] > 0
-    assert pat["stream_bytes"] < 0.5 * nat["stream_bytes"]
-    assert nat["ps_per_slot"] > 0 and nat["actual_gb_s"] > 0
+    A = rng.power_law_csr(300, 200, avg_nnz=6.0)
+    fn, args = CSR_PATHS["flat"](A, SpMVConfig())
+    costs = profiling.cost_analysis(fn, *args, np.ones(200, np.float32))
+    assert costs.get("bytes accessed", 0) > 0
